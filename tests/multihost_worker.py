@@ -82,7 +82,7 @@ def main():
 
     # fragment-streaming leg: process 0 frames + writes each shard's
     # payload span incrementally (multihost.stream_fragments); every
-    # process participates in the dispatch + DCN gather
+    # process participates in the dispatch + cross-host gather
     geo = enc.enc.geo
     pre = PicturePreamble(
         wavelet_kernel=cfg.kernel, depth=cfg.wavelet_depth,

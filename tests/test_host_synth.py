@@ -1,7 +1,7 @@
 """Native host synthesis tail == the JAX device tail, exactly.
 
 host_synth (vc2host.cpp idwt_plane / hq_dequant_scatter / clip_format_out)
-is the decode link-failover route; it must reproduce the device synthesis
+is the decoder's host route; it must reproduce the device synthesis
 bit-for-bit over every kernel and depth. Golden coverage comes from
 tests/test_golden.py (route="host"); this file pins the engine directly
 against wavelet.lifting + quant.quantiser on random lanes.

@@ -53,7 +53,7 @@ CASES = [
 ]
 # each wavefront case compiles its own scan (tens of seconds on one CPU
 # core); the degenerate-geometry and remaining-kernel cases ride the slow
-# tier with the other permutation matrices (VERDICT r3 #8 pattern)
+# tier with the other permutation matrices
 if os.environ.get("VC2TPU_SLOW") == "1":
     CASES += [
         (5, 2, K.Daub97, 16, 48, 16, 48, 2, 6, 30, 300, 100),  # 4:4:4

@@ -157,7 +157,7 @@ def test_collect_hq_payloads_matches_fragment_reassembly():
 
 def test_scaling_harness_smoke():
     """scaling_efficiency runs end-to-end on a virtual mesh and returns a
-    finite throughput (the real measurement needs TPU-pod hardware)."""
+    finite throughput (the real measurement needs several hosts)."""
     import jax
 
     if len(jax.devices()) < 8:

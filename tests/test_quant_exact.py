@@ -1,11 +1,17 @@
 """Exhaustive exactness of quant/scale vs the reference C semantics.
 
-The TPU implementations replace integer division with a float32-reciprocal
+The implementations replace integer division with a float32-reciprocal
 estimate + integer fix-up (quant) and shifts (scale); this sweep pins them
 against a literal int32-wrapping model of Quantisation.cpp:69-95 over every
-quantiser index and the full legal coefficient range envelope.
+quantiser index and the full legal coefficient range envelope. Each check
+runs eagerly and jitted: a compiled program may fuse and contract the float
+arithmetic where op-by-op execution does not.
+
+The checks are plain functions of ``make_sweep()`` so that chip_smoke.py can
+run them on the card outside pytest.
 """
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -43,8 +49,7 @@ def ref_scale(v, q):
     return -r if neg else r
 
 
-@pytest.fixture(scope="module")
-def sweep():
+def make_sweep():
     rng = np.random.default_rng(1)
     # full exactness domain: everything up to |v| < 2^29 (where the
     # reference's own |v|<<2 stays in int), incl. the high-magnitude band
@@ -68,22 +73,27 @@ def sweep():
     return vals, qs, V, Q
 
 
+@pytest.fixture(scope="module")
+def sweep():
+    return make_sweep()
+
+
 def test_quant_exact(sweep):
     vals, qs, V, Q = sweep
-    got = np.asarray(quant(V, Q))
     exp = np.array([[ref_quant(int(v), int(q)) for v in vals] for q in qs])
-    assert np.array_equal(got, exp)
+    for fn in (quant, jax.jit(quant)):
+        assert np.array_equal(np.asarray(fn(V, Q)), exp)
 
 
 def test_scale_exact(sweep):
     vals, qs, V, Q = sweep
-    got = np.asarray(scale(V, Q))
     exp = np.array([[ref_scale(int(v), int(q)) for v in vals] for q in qs])
-    assert np.array_equal(got, exp)
+    for fn in (scale, jax.jit(scale)):
+        assert np.array_equal(np.asarray(fn(V, Q)), exp)
 
 
 def test_banded_lookup_exact():
-    """The one-hot MXU table lookup must equal the gather it replaces for
+    """The one-hot matmul table lookup must equal the gather it replaces for
     every q (including out-of-domain values, which clamp like banded_aq)
     and a quant matrix reaching the spec's maximum default entry (30)."""
     rng = np.random.default_rng(11)
@@ -91,17 +101,20 @@ def test_banded_lookup_exact():
     q = jnp.asarray(np.concatenate([
         np.arange(-4, 260), rng.integers(0, 127, 400)]).astype(np.int32))
     tables = (ABS_QF_I32, RECIP_QF_F32, QUANT_FACTORS_I32, QUANT_OFFSETS)
-    got = np.asarray(banded_lookup(q, qm, pack_tables(*tables)))
+    planes = pack_tables(*tables)
     aq = np.asarray(banded_aq(q, qm))
-    for i, t in enumerate(tables):
-        want = np.ascontiguousarray(t).view(np.uint32)[aq]
-        assert np.array_equal(got[..., i].astype(np.int64) & 0xFFFFFFFF,
-                              want.astype(np.int64)), f"table {i} diverges"
+    for fn in (banded_lookup, jax.jit(banded_lookup)):
+        got = np.asarray(fn(q, qm, planes))
+        for i, t in enumerate(tables):
+            want = np.ascontiguousarray(t).view(np.uint32)[aq]
+            assert np.array_equal(got[..., i].astype(np.int64) & 0xFFFFFFFF,
+                                  want.astype(np.int64)), \
+                f"table {i} diverges"
 
 
 def test_mxu_route_parity(sweep, monkeypatch):
-    """quant_banded/scale_banded bit-identical on the MXU-lookup and gather
-    routes (the production TPU route vs the CPU/test route)."""
+    """quant_banded/scale_banded bit-identical on the matmul-lookup and
+    gather routes (the accelerator default vs the CPU route)."""
     vals, qs, V, Q = sweep
     n = V.shape[1]
     sizes = (n // 2, n - n // 2)

@@ -96,7 +96,8 @@ def test_search_threshold_matches_reference():
 
 def test_search_mxu_route_parity(monkeypatch):
     """The full CBR search (probes + climb) must decide identically on the
-    MXU table-lookup route (production TPU) and the gather route (CPU)."""
+    matmul table-lookup route (the accelerator default) and the gather route
+    (CPU)."""
     rng = np.random.default_rng(19)
     qm = matrices.quant_matrix(WaveletKernel.LeGall, 2).astype(np.int32)
     n = 72

@@ -312,9 +312,9 @@ def test_random_corruption_never_crashes_device_route():
 
 
 def test_auto_route_borderline_takes_second_sample(monkeypatch):
-    """A borderline first host-synth reading (within 3x of the link probe)
+    """A borderline first host-synth reading (within 3x of the fetch probe)
     must NOT commit the route: the probe is a min-of-2 warm measurement and
-    one cold host frame locked an r4 bench stream onto a 5x-slower route.
+    one cold host frame could lock a stream onto the slower route.
     The decoder takes a second sample and commits on the min."""
     import io
 
@@ -329,7 +329,7 @@ def test_auto_route_borderline_takes_second_sample(monkeypatch):
 
     committed_after = []
 
-    def fake_probe(self, nbytes, budget=2.0):
+    def fake_probe(self, nbytes):
         # slightly ABOVE the current host synth best: host should win, but
         # not by the decisive 3x margin on the first frame
         return min(self._host_probe_ts) * 1.5

@@ -18,7 +18,7 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
 # program (~5-40 s each on this one-core host), so the default tier keeps
 # the hardest point of the matrix — every kernel at space=8 depth=2 (most
 # shard boundaries, deepest halo reach) plus one cheap (2, 1) smoke — and
-# the full matrix runs in the slow tier (VERDICT r3 #8).
+# the full matrix runs in the slow tier.
 SLOW = pytest.mark.skipif(not os.environ.get("VC2TPU_SLOW"),
                           reason="redundant mesh permutation; "
                                  "set VC2TPU_SLOW=1")

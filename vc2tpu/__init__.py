@@ -1,14 +1,15 @@
-"""vc2tpu — a TPU-native SMPTE ST 2042-1 "VC-2" video codec framework.
+"""vc2tpu — an SMPTE ST 2042-1 "VC-2" video codec framework in JAX.
 
-A from-scratch re-design of the capabilities of bbc/vc2-reference for TPU:
+A from-scratch re-design of the capabilities of bbc/vc2-reference for an
+accelerator:
 
 * the compute path (wavelet lifting transforms, dead-zone quantisation,
-  rate-distortion search, exp-Golomb bit-length/bit-pattern generation) is
-  pure-functional JAX batched over the picture's slice grid, with Pallas
-  kernels for the hot lifting passes;
+  rate-distortion search, exp-Golomb bit-length/bit-pattern generation,
+  entropy pack and unpack) is pure-functional JAX batched over the
+  picture's slice grid;
 * the host path (bitstream bytes, stream syntax, file I/O) is NumPy plus a
   small C++ entropy packer/unpacker (``vc2tpu/_native``);
-* multi-chip scale-out shards the slice grid / frame batch over a
+* multi-device scale-out shards the slice grid / frame batch over a
   ``jax.sharding.Mesh`` with halo-exchange collectives for the DWT
   (``vc2tpu/shard``).
 
@@ -26,18 +27,21 @@ import jax as _jax
 # long long), so 64-bit types must be real. Hot arrays are explicitly int32.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: one geometry compiles once per machine,
-# not once per CLI invocation.
+# Persistent compile cache, so one geometry compiles once, not once per CLI
+# invocation. JAX itself honours JAX_COMPILATION_CACHE_DIR; without it the
+# cache is a fixed directory inside the checkout (listed in .gitignore) —
+# the cache path is part of the cache key, so it must not move.
 if not _os.environ.get("VC2TPU_NO_COMPILE_CACHE"):
-    _cache = _os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "vc2tpu-jax"))
-    try:
-        _os.makedirs(_cache, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        _cache = _os.path.join(
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache")
+        try:
+            _os.makedirs(_cache, exist_ok=True)
+            _jax.config.update("jax_compilation_cache_dir", _cache)
+        except OSError:
+            pass                  # read-only checkout: run uncached
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from vc2tpu.core.config import (  # noqa: F401
     WaveletKernel,

@@ -3,12 +3,18 @@
 Compiles the shared object on first use if a compiler is available; callers
 fall back to the NumPy implementations when ``native`` is None. Set
 VC2TPU_NO_NATIVE=1 to force the NumPy paths (used by tests to cover both).
+
+The library is built with ``-march=native``, so its file name carries a hash
+of the source, the compiler flags and the host CPU: a library built on one
+machine is never loaded on another, nor after the source changes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import sys
 
@@ -16,7 +22,8 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "vc2host.cpp")
-_SO = os.path.join(_HERE, "libvc2host.so")
+_FLAGS = ("-O3", "-fwrapv", "-shared", "-fPIC", "-std=c++14")
+_ARCH_FLAGS = (("-march=native",), ())     # tried in order
 
 
 def _payload_u8(payload) -> np.ndarray:
@@ -292,26 +299,54 @@ class _Native:
             c64(yb), c64(ub), c64(vb), c64(starts), out)
 
 
+def _cpu_identity() -> str:
+    """What ``-march=native`` resolves from: the CPU model and feature
+    flags as the kernel reports them (first processor), else the machine
+    name."""
+    ident = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    ident.append(line.strip())
+                elif not line.strip() and len(ident) > 1:
+                    break
+    except OSError:
+        ident.append(platform.processor())
+    return "\n".join(ident)
+
+
+def _so_path(cpu: str | None = None) -> str:
+    """Library path keyed by source, flags and host CPU."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(repr((_FLAGS, _ARCH_FLAGS)).encode())
+    h.update((_cpu_identity() if cpu is None else cpu).encode())
+    return os.path.join(_HERE, f"libvc2host-{h.hexdigest()[:16]}.so")
+
+
 def _build() -> str | None:
     if not os.path.exists(_SRC):
         return None
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
+    so = _so_path()
+    if os.path.exists(so):
+        return so
     # compile to a per-process temp name and rename into place: concurrent
     # first-use builds (parallel pytest workers, CLI + test together) must
     # never dlopen a partially written .so
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    base = ["-O3", "-fwrapv", "-shared", "-fPIC", "-std=c++14", _SRC,
-            "-o", tmp]
+    tmp = f"{so}.{os.getpid()}.tmp"
+    base = list(_FLAGS) + [_SRC, "-o", tmp]
     for cxx in (os.environ.get("CXX"), "g++", "c++", "clang++"):
         if not cxx:
             continue
-        for extra in (["-march=native"], []):
+        for extra in _ARCH_FLAGS:
             try:
-                subprocess.run([cxx] + extra + base, check=True,
+                subprocess.run([cxx, *extra, *base], check=True,
                                capture_output=True)
-                os.replace(tmp, _SO)
-                return _SO
+                os.replace(tmp, so)
+                return so
             except (OSError, subprocess.CalledProcessError):
                 continue
     return None

@@ -1,6 +1,6 @@
 // vc2host — native host-side entropy codec for vc2tpu.
 //
-// The TPU generates, per coefficient lane, an interleaved exp-Golomb code
+// The device generates, per coefficient lane, an interleaved exp-Golomb code
 // word and bit length; this module scatters those into the byte stream
 // (pack) and runs the sequential bounded-region exp-Golomb decode (unpack).
 // Bounded-region semantics mirror the reference bit engine
@@ -913,8 +913,8 @@ EXPORT void component_bits_used(const int32_t* lanes, int64_t S, int64_t n_lanes
 }
 
 // ---------------------------------------------------- host synthesis tail
-// Link-failover decode path: when the host<->device link is slower than one
-// CPU core (common behind network-attached accelerators), the decoder routes
+// Host decode route: when fetching the decoded samples from the device takes
+// longer than one CPU core's synthesis, the decoder's auto route sends
 // the synthesis tail (dequant + inverse DWT + clip + planar format) to these
 // functions instead of fetching 5.5 MB/frame of decoded samples. Bit-exact
 // twin of the device path (pipeline/decoder.py) and of the reference tail
@@ -1420,8 +1420,8 @@ EXPORT int ld_pack(const int32_t* q_idx, const int32_t* ly,
 // vertical ladder (reference waveletTransform, WaveletTransform.cpp:262-281
 // over the per-kernel forward ladders). ``meta``/``taps`` encode the FORWARD
 // steps verbatim from wavelet.lifting._STEPS. Used by the ConstQ and LD
-// link-failover encode routes (the analysis transform runs where the
-// coefficients are consumed when the device link is slower than one core).
+// host encode routes (the analysis transform runs where the coefficients
+// are consumed when the device transfers cost more than one core's DWT).
 //
 // The whole level runs as ONE wavefront sweep down the plane: the
 // horizontal ladder leads (completing physical rows 2m and 2m+1 at outer
@@ -1476,8 +1476,8 @@ EXPORT void dwt_plane(int32_t* plane, int64_t H, int64_t W, int64_t depth,
 // Forward twin of hq_dequant_scatter: gather each slice's coefficients from
 // the in-place transform-layout plane in serialisation (perm) order and
 // dead-zone quantise them (Quantisation.cpp:69-76) — the HQ ConstQ encode
-// analysis stage for the link-failover route (no rate-control search, so
-// one core beats shipping the frame across a slow device link).
+// analysis stage for the host route (no rate-control search, so one core
+// can beat shipping the frame to the device).
 EXPORT void hq_quant_gather(const int32_t* plane, int64_t S, int64_t L,
                             const int32_t* q_idx, const int32_t* qm_lane,
                             const int32_t* off_plane,

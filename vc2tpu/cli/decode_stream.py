@@ -18,7 +18,6 @@ import numpy as np
 
 from vc2tpu.core.config import DecOutput, PictureGeometry
 from vc2tpu.core.picture import Picture
-from vc2tpu.core.platform import honour_jax_platforms
 from vc2tpu.core.planario import SampleFormat, write_picture
 from vc2tpu.pipeline import host_synth
 from vc2tpu.pipeline.decoder import (synthesise_lanes,
@@ -138,10 +137,10 @@ class Decoder:
         # Synthesis route: the decoded-output tail runs on the device (one
         # narrow H2D + fused dequant/IDWT/format + one D2H fetch) or on the
         # native host engine (host_synth) — for decode the host already holds
-        # all information, so when the host<->device link is slower than one
-        # CPU core the fetch is pure overhead (BASELINE.md "link ceiling").
+        # all information, so when the device->host fetch of the output costs
+        # more than one CPU core's synthesis the device route only adds time.
         # 'auto' times the first frame's host synthesis against a measured
-        # link probe and commits; VC2TPU_DECODE_ROUTE=device|host overrides.
+        # fetch probe and commits; VC2TPU_DECODE_ROUTE=device|host overrides.
         self._route_mode = (route or
                             os.environ.get("VC2TPU_DECODE_ROUTE", "auto"))
         self._route = (self._route_mode
@@ -191,68 +190,39 @@ class Decoder:
 
     _probe_cache: dict = {}           # process-wide: nbytes -> seconds
 
-    def _probe_link_seconds(self, nbytes: int, budget: float = 2.0) -> float:
+    def _probe_link_seconds(self, nbytes: int) -> float:
         """Measured device->host fetch time for an ``nbytes`` buffer (the
-        device route's per-frame link cost). Two reps, min (the first may
-        absorb a trivial compile); cached process-wide — the link does not
-        change between streams.
-
-        The probe runs in a daemon thread with a wall-clock budget: in a
-        fresh process the FIRST device op can block for minutes while the
-        accelerator lease is held elsewhere (see BASELINE.md), and a decoder
-        must never stall on device availability — if the probe does not
-        answer in time the host route wins by forfeit (the late result still
-        lands in the cache for later streams)."""
+        device route's per-frame transfer cost). Two reps, min; cached
+        process-wide — the link does not change between streams. Brings up
+        the backend if nothing in the process has used it yet."""
         cached = Decoder._probe_cache.get(nbytes)
         if cached is not None:
             return cached
-        try:
-            from jax._src import xla_bridge
+        import jax.numpy as jnp
 
-            initialized = bool(xla_bridge._backends)
-        except Exception:
-            initialized = True          # unknown layout: attempt the probe
-        if not initialized:
-            # a pure decode process has not touched the accelerator; do not
-            # force an initialisation just to lose the probe — host route
-            # by forfeit (not cached: a later in-process device user
-            # re-opens the question)
-            return float("inf")
-        import threading
-
-        def probe():
-            try:
-                import jax.numpy as jnp
-
-                n = max(nbytes // 4, 1)
-                best = float("inf")
-                for i in range(2):
-                    a = jnp.zeros((n,), jnp.uint32) + np.uint32(i)
-                    t0 = time.perf_counter()
-                    np.asarray(a)
-                    best = min(best, time.perf_counter() - t0)
-                Decoder._probe_cache[nbytes] = best
-            except Exception:
-                Decoder._probe_cache[nbytes] = float("inf")
-
-        th = threading.Thread(target=probe, daemon=True)
-        th.start()
-        th.join(timeout=budget)
-        return Decoder._probe_cache.get(nbytes, float("inf"))
+        n = max(nbytes // 4, 1)
+        best = float("inf")
+        for i in range(2):
+            a = (jnp.zeros((n,), jnp.uint32) + np.uint32(i)).block_until_ready()
+            t0 = time.perf_counter()
+            np.asarray(a)
+            best = min(best, time.perf_counter() - t0)
+        Decoder._probe_cache[nbytes] = best
+        return best
 
     def _auto_route(self, host_fn, out_bytes: int):
-        """Time this frame's host synthesis against a link probe, commit the
+        """Time this frame's host synthesis against a fetch probe, commit the
         route, and return the (already computed) host result.
 
-        The link probe is a min-of-2 warm measurement, so a single COLD
+        The fetch probe is a min-of-2 warm measurement, so a single COLD
         host frame (first-call page-ins, lru table builds, a transient CPU
         spike) is not a fair opponent: commit on the first frame only when
         the HOST wins decisively (host < link/3 — a cold host sample can
         only understate the host, so a decisive host win is trustworthy,
         while an apparent decisive DEVICE win may be the cold-frame
-        artifact); otherwise time a second host frame and compare the min —
-        an r4 bench run saw one borderline cold frame lock an 8-frame
-        stream onto a 5x-slower route."""
+        artifact); otherwise time a second host frame and compare the min,
+        so one borderline cold frame cannot lock a stream onto the slower
+        route."""
         t0 = time.perf_counter()
         res = host_fn()
         self._host_probe_ts.append(time.perf_counter() - t0)
@@ -265,7 +235,7 @@ class Decoder:
         if decisive:
             self._route = "host" if best < dev_est else "device"
             self.log(f"decode route: host synth {best * 1e3:.0f} ms/frame "
-                     f"(best of {len(self._host_probe_ts)}) vs link fetch "
+                     f"(best of {len(self._host_probe_ts)}) vs device fetch "
                      f"{dev_est * 1e3:.0f} ms -> {self._route}")
         return res
 
@@ -994,7 +964,9 @@ class Decoder:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    honour_jax_platforms()
+    # a JAX process otherwise reserves most of the card on first use, and
+    # `encode_stream ... - | decode_stream -` puts two processes on one card
+    os.environ.setdefault("XLA_PYTHON_CLIENT_PREALLOCATE", "false")
     # incremental input: memory stays O(one data unit) regardless of stream
     # length (reference DecodeStream.cpp:205 istream loop)
     fp = sys.stdin.buffer if args.inFile == "-" else open(args.inFile, "rb")

@@ -1,7 +1,7 @@
 """EncodeStream-compatible CLI.
 
 Flag surface mirrors /root/reference/src/EncodeStream/EncodeParams.cpp:80-107
-so reference command lines work with the TPU encoder, including the seven
+so reference command lines work with this encoder, including the seven
 tap outputs (Transform / Quantised / Indices / Packaged / Stream / Decoded /
 PSNR — reference EncodeStream.cpp:486-767).
 """
@@ -19,7 +19,6 @@ from vc2tpu.core import intmath
 from vc2tpu.core.config import (ColourFormat, EncOutput, EncoderConfig, FrameRate,
                                 Mode, PictureGeometry, Profile, WaveletKernel)
 from vc2tpu.core.picture import Picture, interleave_fields, signal_clip
-from vc2tpu.core.platform import honour_jax_platforms
 from vc2tpu.core.planario import PlanarReader, SampleFormat, encode_plane, write_picture
 from vc2tpu.pipeline.encoder import Encoder
 from vc2tpu.pipeline import ld as ld_pipeline
@@ -31,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vc2tpu-encode",
         description="Encodes an uncompressed planar video file with the "
-                    "TPU-native VC-2 encoder")
+                    "JAX VC-2 encoder")
     p.add_argument("inFile")
     p.add_argument("outFile")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -476,7 +475,9 @@ def run(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    honour_jax_platforms()
+    # a JAX process otherwise reserves most of the card on first use, and
+    # `encode_stream ... - | decode_stream -` puts two processes on one card
+    os.environ.setdefault("XLA_PYTHON_CLIENT_PREALLOCATE", "false")
     if args.profile:
         import jax
 

@@ -1,6 +1,6 @@
 """Picture pytree: three int32 planes + static geometry.
 
-TPU-native replacement for the reference's ``Picture``/``Frame`` classes
+Array-native replacement for the reference's ``Picture``/``Frame`` classes
 (/root/reference/src/Library/Picture.h:53-70, src/Frame.cpp:40-110).
 Planes are plain arrays (jnp or np); geometry travels as aux data so a
 Picture can cross a ``jax.jit`` boundary.

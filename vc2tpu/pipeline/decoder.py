@@ -45,9 +45,9 @@ def _pack10_words(out):
 
     Word i packs samples (i, i+m3, i+2*m3) — contiguous THIRDS of the flat
     sample buffer, not (3i, 3i+1, 3i+2): the interleaved form needs a
-    lane-strided (-1, 3) reshape that XLA lowers to ~2.8 ms of relayout
-    loops per 1080p frame on v5e, while thirds are three whole-array
-    slices + shifts (~0.2 ms). The host side (_unpack10 /
+    lane-strided (-1, 3) reshape, which XLA lowered to slow relayout loops
+    on the TPU this codec was first built for, while thirds are three
+    whole-array slices + shifts. The host side (_unpack10 /
     vc2host.cpp unpack10_to_be16) mirrors the layout. The decode tails use
     the 2D _pack_planes10 below instead — flattening the IDWT planes
     inside the program costs another ~3 ms of relayout loops."""
@@ -61,11 +61,10 @@ def _pack10_words(out):
 def _pack_planes10(planes):
     """2D thirds pack of whole planes: plane rows (r, r+h3, r+2h3) pack
     into word row r — row slices and shifts only, every array stays 2D in
-    its natural device layout. An in-program ``.ravel()`` of the three
-    IDWT output planes measured ~3 ms/frame of relayout loops at 1080p on
-    v5e, while the transfer's own linearisation of a 2D result is free
-    (it rides the outfeed DMA), so the flatten must not appear in the
-    program. Returns ONE 2D uint32 array: luma word rows stacked over the
+    its natural device layout. On the TPU this codec was first built for,
+    an in-program ``.ravel()`` of the three IDWT output planes became
+    relayout loops while the transfer's own linearisation of a 2D result
+    was free, so the flatten stays out of the program. Returns ONE 2D uint32 array: luma word rows stacked over the
     chroma pair (side by side when 2*cw == lw — 4:2:2/4:2:0 — stacked
     otherwise). Host twin: _unpack10_2d. Row-major raveled, each plane's
     word block is exactly the flat thirds layout of its (row-padded)
@@ -331,7 +330,7 @@ def synthesise_ld_payload_to_words(payload: np.ndarray, sizes, qmatrix,
                                    bitdepth: int, qm_block_y, qm_block_c,
                                    start: int = 0, allow_pack: bool = True):
     """Async full-device LD decode route: the compressed payload plus the
-    small host-dequantised LL grids cross the link; entropy unpack of the
+    small host-dequantised LL grids go to the device; entropy unpack of the
     body coefficients, dequant, IDWT and output formatting run on chip.
     Returns (q_indices, (device_words, postprocess)), or (q, None) when the
     window blocks would be pathologically large (host/plane route instead).

@@ -1,10 +1,9 @@
-"""Native host synthesis tail — the decode link-failover route.
+"""Native host synthesis tail — the decoder's host route.
 
 For decode, the host already holds every bit of information (the compressed
-stream); fetching 5.5 MB/frame of decoded samples from the device is pure
-link overhead. When the host<->device link is slower than one CPU core can
-synthesise (network-attached accelerators; see BASELINE.md "link ceiling"),
-the decoder routes the tail (dequant + inverse DWT + clip + planar format)
+stream); fetching 5.5 MB/frame of decoded samples from the device costs a
+transfer. When that fetch takes longer than one CPU core needs to
+synthesise the frame, the decoder's auto route sends the tail (dequant + inverse DWT + clip + planar format)
 to the native engine in vc2host.cpp instead. Bit-exact twin of the device
 tail (pipeline/decoder.py) and of the reference decode tail
 (/root/reference/src/DecodeStream/DecodeStream.cpp:551-609).

@@ -4,7 +4,7 @@ Decomposition (SURVEY.md §2 parallelism table):
 
 * ``data``  — independent frames (intra-only codec);
 * ``space`` — row bands of each picture; the DWT exchanges halo rows per
-  vertical lifting pass (vc2tpu.shard.halo) over an ICI ring, everything
+  vertical lifting pass (vc2tpu.shard.halo) over a device ring, everything
   afterwards — RDO, quantisation, VLC entropy packing — is slice-local and
   partitions along the same axis with no further communication (slice rows
   coincide with row bands).
@@ -332,9 +332,9 @@ class ShardedEncoder:
     def _fetch_heads(self, bufs, B):
         """Per-(picture, shard) (flags, q, totals) heads; ``bufs`` indexes
         as (B, space*seg) device or host array. All B*space head regions
-        come over in ONE gathered transfer — the link is serial with
-        ~40 ms latency per D2H round trip, so per-(picture, shard) fetches
-        would cost B*space round trips for a few hundred bytes each."""
+        come over in ONE gathered transfer: per-(picture, shard) fetches
+        would pay B*space device->host round trips for a few hundred bytes
+        each."""
         head = device_pack.head_bytes(self.n_loc)
         seg = head + self.cap_local
         idx = (np.arange(self.space)[:, None] * seg

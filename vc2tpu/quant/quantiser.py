@@ -78,14 +78,15 @@ def adjust_quant_index(q_index, q_matrix):
 
 
 def _trunc_div_i32(a, b):
-    """C truncating division on int32 lanes (int32-only, TPU friendly)."""
+    """C truncating division on int32 lanes (int32 only)."""
     q = jnp.abs(a) // jnp.abs(b)
     return jnp.where((a < 0) ^ (b < 0), -q, q)
 
 
-# |quant_factor| and its float32 reciprocal — TPUs have no integer divide
-# unit, so quant() computes a float32 reciprocal estimate and makes it exact
-# with a residual refinement step plus two +-1 fix-up rounds (below).
+# |quant_factor| and its float32 reciprocal. quant() computes a float32
+# reciprocal estimate and makes it exact with a residual refinement step plus
+# two +-1 fix-up rounds (below): the TPU this codec was first built for has
+# no integer divide unit, and a multiply beats a divide on any accelerator.
 ABS_QF_I32 = np.minimum(np.abs(QUANT_FACTORS_I32.astype(np.int64)),
                         2**31 - 1).astype(np.int32)   # INT_MIN entry clamps;
 # the <<2 magnitude is a multiple of 4 and < 2^31, so no quotient changes
@@ -106,7 +107,12 @@ def _quant_core(v, absqf, recip, neg_qf):
     int32 wrap-around in the residuals is harmless: the true residual
     magnitude is always < 2^31 so modular arithmetic yields its exact value.
     Verified by the exhaustive high-magnitude sweep in
-    tests/test_quant_exact.py.
+    tests/test_quant_exact.py, eager and jitted.
+
+    Compilers may contract a float multiply followed by an add into one FMA;
+    here no float product feeds a float add (each product is converted to
+    int32 straight away and every add and compare is integer), so there is
+    nothing to contract and the result is the same on every backend.
     """
     mag = jnp.abs(v) << 2
     out = (mag.astype(jnp.float32) * recip).astype(jnp.int32)
@@ -162,18 +168,16 @@ def scale(values, q_indices):
 # Coefficient lanes (slices/layout.lane_order) are contiguous by subband, and
 # the quant matrix is constant within a subband, so every per-element table
 # lookup can become a (slices, bands) lookup broadcast along static band
-# extents — TPU gathers are the hot-loop cost, broadcasts are free.
+# extents: one gathered value per (slice, band) instead of per coefficient.
 #
-# Even the (slices, bands) gather is the dominant cost of the CBR search on
-# TPU: the op-level fusion profile measures ~7 ns/element for a
-# one-element-per-(slice, band) gather, ~50x the surrounding arithmetic
-# (BASELINE.md "CBR search op profile"). banded_lookup below therefore routes
-# the lookup through the MXU instead: one-hot(q) @ byte-split table planes.
-# This is exact, not approximate — one-hot entries and byte values < 256 are
-# exactly representable in bfloat16, and each output row accumulates exactly
-# one non-zero product, so the float32 accumulator only ever sees one exact
-# value. The gather form is kept as the CPU route (XLA:CPU gathers are cheap
-# and its matmuls are not) and as the oracle for exactness tests.
+# On the TPU this codec was first built for, even the (slices, bands) gather
+# dominated the CBR search, so banded_lookup below can do the lookup as a
+# matrix product instead: one-hot(q) @ byte-split table planes. This is
+# exact, not approximate — one-hot entries and byte values < 256 are exactly
+# representable in bfloat16, and each output row accumulates exactly one
+# non-zero product, so the float32 accumulator only ever sees one exact
+# value. The gather form is the CPU route and the oracle for exactness tests;
+# which form is faster on a GPU is an open measurement (mxu_tables_enabled).
 
 _OH_ROWS = 192   # one-hot q domain; lookups stay exact while every quant
                  # matrix entry is <= _OH_ROWS - 1 - MAX_QINDEX = 72 (the
@@ -182,8 +186,9 @@ _OH_ROWS = 192   # one-hot q domain; lookups stay exact while every quant
 
 
 def mxu_tables_enabled() -> bool:
-    """Trace-time route choice: MXU lookup on accelerators, gathers on CPU.
-    VC2TPU_MXU_TABLES=0/1 forces (tests cover both routes explicitly)."""
+    """Trace-time route choice: one-hot matmul lookup on accelerators,
+    gathers on CPU. VC2TPU_MXU_TABLES=0/1 forces (tests cover both routes
+    explicitly)."""
     v = os.environ.get("VC2TPU_MXU_TABLES")
     if v is not None:
         return v != "0"
@@ -215,7 +220,11 @@ def banded_lookup(q, qm_bands, planes):
     packed = packed.reshape(_OH_ROWS, -1)
     qflat = jnp.clip(q, 0, _OH_ROWS - 1).reshape(-1)
     oh = (qflat[:, None] == r).astype(jnp.bfloat16)              # (M, R)
-    f = jnp.dot(oh, packed, preferred_element_type=jnp.float32)
+    # HIGHEST: bf16 operands with a float32 accumulator, never a reduced
+    # precision path; exact because every row sums one product of two
+    # bf16-exact integers (< 256), see the section comment above.
+    f = jnp.dot(oh, packed, preferred_element_type=jnp.float32,
+                precision=lax.Precision.HIGHEST)
     b = f.astype(jnp.int32).reshape(q.shape + (qm_bands.shape[0], -1, 4))
     return (b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
             | (b[..., 3] << 24))

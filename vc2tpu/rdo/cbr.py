@@ -48,10 +48,10 @@ _ABS_QF_U32 = ABS_QF_I32.astype(np.uint32)
 _BL_QF = np.array([int(x).bit_length() for x in _ABS_QF_U32], np.int32)
 _QF_NORM = (_ABS_QF_U32 << (32 - _BL_QF)).astype(np.uint32)
 
-# One-hot-matmul plane packs (quantiser.banded_lookup): the per-(slice, band)
-# table gathers measured ~7 ns/element and were ~90% of the whole search's
-# device time — the MXU lookup removes them from the probe passes, the hill
-# climb and the final quantise alike.
+# One-hot-matmul plane packs (quantiser.banded_lookup): on the TPU this codec
+# was first built for, the per-(slice, band) table gathers took most of the
+# search's device time, and the matmul lookup removes them from the probe
+# passes, the hill climb and the final quantise alike.
 _SIZING_PACK = pack_tables(_ABS_QF_U32, _BL_QF, _QF_NORM)
 _YSS_PACK = pack_tables(ABS_QF_I32, RECIP_QF_F32, QUANT_FACTORS_I32,
                         QUANT_OFFSETS)
@@ -109,8 +109,8 @@ def _component_bits_fast(forms, tables, band_sizes):
     signed_vlc_numbits(quant_banded(...)) bit-for-bit (tests/test_rdo.py);
     mirrors component_slice_bytes (reference Slices.cpp:97-119) including
     the trailing-zero truncation rule. ``tables`` are the (N, B) per-band
-    gathers — shared by all three components of a trial (gathers are the
-    TPU hot-loop cost; the broadcasts here are free).
+    gathers — shared by all three components of a trial (one lookup per
+    (slice, band); the broadcasts here are cheap).
     """
     m4, blm, m4n = forms
     qf_b, blq_b, qfn_b = tables

@@ -6,9 +6,9 @@ against a running reconstructed-LL plane, in strict raster order
 (/root/reference/src/EncodeStream/EncodeStream.cpp:195-245 over
 src/Library/src/Quantisation.cpp:191-234). That recurrence made LD the one
 reference hot loop without an on-chip form — the host-scalar scan
-(vc2host.cpp ld_encode) is ~131 ms/frame at 1080p.
+(vc2host.cpp ld_encode) walks the slices one by one.
 
-TPU-first decomposition:
+Decomposition:
 
 * A slice's ladder depends only on the FINAL reconstructions of its left /
   above / above-left neighbours (raster order finalises them first), so
@@ -19,8 +19,8 @@ TPU-first decomposition:
   are static).
 * Diagonal-major staging is pure pad+reshape+transpose (``_skew``): the
   row-skew identity ``B[v, v+h] = A[v, h]`` falls out of reinterpreting a
-  (R, C+R+1)-padded row-major buffer as (R, C+R) — no gathers, which on
-  TPU cost ~7 ns/element (CLAUDE.md traps).
+  (R, C+R+1)-padded row-major buffer as (R, C+R) — no gathers, which were
+  costly on the TPU this codec was first built for.
 * Cross-slice state rides the scan carry as per-lane border rows: a slice
   at (v, h) sits on diagonal d = v+h, its above/left neighbours on d-1 at
   lanes v-1 / v, its above-left on d-2 — so neighbour fetches are static
@@ -29,8 +29,8 @@ TPU-first decomposition:
   the division-free forms of rdo/cbr.py (_component_bits_fast's algebra);
   only the tiny LL block (1/4^depth of the slice) runs the real
   quantise/scale recurrence, unrolled over its static extent. Per-probe
-  quantiser tables come from ONE banded one-hot MXU lookup
-  (quantiser.banded_lookup) — gather-free on accelerators.
+  quantiser tables come from ONE banded table lookup
+  (quantiser.banded_lookup).
 
 Bit-exact against the native scan (tests/test_ld_device_rdo.py) and, via
 it, the reference: identical probe sequence, identical LL arithmetic

@@ -5,7 +5,7 @@ The reference's in-place lifting reads neighbour rows through shared memory
 picture's rows are sharded over the ``space`` mesh axis, every *vertical*
 lifting pass instead exchanges up to ``HALO`` boundary rows of the opposite
 parity with each neighbour via ``jax.lax.ppermute`` — one tiny ring hop per
-pass, riding ICI. Horizontal passes are shard-local.
+pass over the device interconnect. Horizontal passes are shard-local.
 
 Exactness: a lifting pass reads only the *other* parity's current values at
 sub-lattice offsets within ±4 (Fidelity is the widest, ±4; DD137 ±3), so a
@@ -125,9 +125,10 @@ def _level_sharded(v, kernel: WaveletKernel, axis_name: str, invert: bool):
 
 
 def _forward_local(x, kernel: WaveletKernel, depth: int, axis_name: str):
-    # _get_sub/_set_sub, not x.at[::s, ::s].set: the strided sub-lattice
-    # scatter costs ~50x the lifting arithmetic on TPU (CLAUDE.md trap);
-    # the recursive stride-2 split + stack-interleave form fuses
+    # _get_sub/_set_sub, not x.at[::s, ::s].set: on the TPU this codec was
+    # first built for, the strided sub-lattice scatter cost far more than
+    # the lifting arithmetic, while the recursive stride-2 split +
+    # stack-interleave form fuses
     for level in range(depth):
         s = 1 << level
         if s == 1:

@@ -3,9 +3,10 @@
 Two mesh axes (SURVEY.md §2 parallelism table):
 
 * ``data``  — frame parallelism (intra-only codec: frames are independent);
-  maps to DCN across hosts.
+  spans hosts when there are several.
 * ``space`` — row-band parallelism within one picture; the separable DWT
-  exchanges boundary rows per lifting pass over ICI (vc2tpu.shard.halo).
+  exchanges boundary rows per lifting pass between neighbouring devices
+  (vc2tpu.shard.halo).
 """
 
 from __future__ import annotations

@@ -2,25 +2,26 @@
 stream assembly, and the scaling-efficiency harness.
 
 The reference is strictly single-process (SURVEY.md §2: no MPI/NCCL/any
-distributed anything); this module is the TPU-native scale-out story for
+distributed anything); this module is the scale-out across hosts for
 config #5 (8K row-band sharding across hosts):
 
-* ``data`` axis — frame parallelism across hosts, riding DCN (frames are
+* ``data`` axis — frame parallelism across hosts, over the inter-host
+  network (frames are
   independent in an intra-only codec);
-* ``space`` axis — row-band parallelism inside each frame, riding ICI
-  (per-lifting-pass halo rings, vc2tpu.shard.halo).
+* ``space`` axis — row-band parallelism inside each frame, over the
+  host's own device interconnect (per-lifting-pass halo rings, vc2tpu.shard.halo).
 
 Each process contributes its local devices; the sharded encode step
 (pipeline.sharded) runs identically to the single-process case — the only
 multi-host-specific machinery is (a) jax.distributed initialisation, (b)
 building global arrays from per-process frame data, and (c) gathering the
-per-shard payload buffers over DCN so process 0 can emit the byte stream:
+per-shard payload buffers across hosts so process 0 can emit the byte stream:
 either assembled whole pictures (encode_local_batch) or fragment data
 units streamed span-by-span as stream_fragments walks the gathered
 shard buffers (FragmentWriter — bounded buffering, no full-payload
 assembly).
 
-Validated without TPU pods by the multiprocess CPU harness in
+Validated without a multi-host cluster by the multiprocess CPU harness in
 tests/test_multihost.py (N processes x M virtual CPU devices each), which
 asserts the assembled stream is byte-identical to the single-chip encoder.
 """
@@ -40,8 +41,9 @@ from vc2tpu.pipeline.sharded import ShardedEncoder
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Bring up the JAX distributed runtime (DCN control plane). On TPU pods
-    all arguments auto-detect; the CPU harness passes them explicitly."""
+    """Bring up the JAX distributed runtime. Where no cluster environment
+    tells JAX the coordinator, pass all three arguments (the CPU harness
+    does)."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -49,8 +51,8 @@ def init_distributed(coordinator_address: str | None = None,
 
 def make_global_mesh(data: int | None = None,
                      space: int | None = None) -> Mesh:
-    """Mesh over ALL processes' devices: ``data`` (frames, DCN-major) x
-    ``space`` (row bands, ICI-major). Defaults: data = process count (each
+    """Mesh over ALL processes' devices: ``data`` (frames, across hosts) x
+    ``space`` (row bands, within a host). Defaults: data = process count (each
     host owns whole frames), space = devices per process."""
     devices = jax.devices()
     if data is None:
@@ -60,7 +62,8 @@ def make_global_mesh(data: int | None = None,
     if data * space != len(devices):
         raise ValueError(f"mesh {data}x{space} != {len(devices)} devices")
     # jax.devices() orders by process; reshaping (data, space) keeps each
-    # row's ``space`` ring within one process where possible (ICI not DCN)
+    # row's ``space`` ring within one process where possible (one host's
+    # interconnect, not the network)
     return Mesh(np.array(devices).reshape(data, space), ("data", "space"))
 
 
@@ -70,7 +73,7 @@ class MultiHostEncoder:
     Every process calls encode_batch() with the SAME global batch metadata
     but only its own frames' pixel data (frames are distributed over the
     ``data`` axis, one block of B/data frames per mesh row). The sharded
-    step runs globally; per-shard payload buffers are allgathered over DCN
+    step runs globally; per-shard payload buffers are allgathered across hosts
     and every process can assemble the identical stream — process 0 writes
     it (write_stream)."""
 
@@ -107,7 +110,8 @@ class MultiHostEncoder:
 
         enc = self.enc
         q_idx, bufs = self._dispatch_global(pictures)
-        # DCN gather: every process receives the full (B, space*M) buffers
+        # cross-host gather: every process receives the full (B, space*M)
+        # buffers
         q_all = multihost_utils.process_allgather(q_idx, tiled=True)
         bufs_all = multihost_utils.process_allgather(bufs, tiled=True)
         out, retry = enc._assemble(np.asarray(q_all), np.asarray(bufs_all),
@@ -120,7 +124,7 @@ class MultiHostEncoder:
 
     def stream_fragments(self, pictures, writer, picture_numbers, preamble):
         """Fragment-streaming multi-host output: run the global step,
-        gather the per-shard buffers over DCN (one allgather — the
+        gather the per-shard buffers across hosts (one allgather — the
         transport granularity), and on process 0 frame + write each
         shard's payload span incrementally through FragmentWriter — no
         full-picture payload is ever assembled. picture_numbers cover the
@@ -211,8 +215,8 @@ class MultiHostDecoder:
     """Frame-parallel multi-host HQ decode: pictures are partitioned
     round-robin over processes, each process entropy-unpacks and
     synthesises its block row-band-sharded over its LOCAL ``space``
-    devices (ICI halo rings), and process 0 gathers the cropped planes
-    over DCN for in-order planar output — the multi-host analogue of the
+    devices (halo rings), and process 0 gathers the cropped planes
+    across hosts for in-order planar output — the multi-host analogue of the
     reference decode tail + fragment reassembly
     (/root/reference/src/DecodeStream/DecodeStream.cpp:799-976)."""
 
@@ -250,7 +254,7 @@ class MultiHostDecoder:
         """items: the GLOBAL [(picture_number, payload)] list in output
         order. Returns the ordered [(y, c1, c2)] cropped int32 planes on
         process 0, None elsewhere. Picture i is decoded by process
-        i % process_count; process 0 receives every block via one DCN
+        i % process_count; process 0 receives every block via one cross-host
         allgather of the stacked planes."""
         import jax
         from jax.experimental import multihost_utils
@@ -290,8 +294,8 @@ def scaling_efficiency(cfg: EncoderConfig, mesh: Mesh, n_frames: int = 4,
     """Throughput harness for the 1->N-host scaling target (BASELINE.json
     north star: >=80% at 8K). Times the sharded encode step end-to-end on
     ``mesh`` and returns frames/s; run with meshes of increasing host count
-    and divide. Works on any backend (CPU virtual mesh for validation, TPU
-    pod for the real measurement)."""
+    and divide. Works on any backend (CPU virtual mesh for validation, real
+    devices for the measurement)."""
     import time
 
     from vc2tpu.core.picture import Picture

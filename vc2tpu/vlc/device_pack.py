@@ -4,7 +4,7 @@ The reference serialises slices with a bit-serial stream writer
 (/root/reference/src/Library/src/Slices.cpp:305-467 over src/VLC.cpp:120-257).
 Here the ENTIRE slice payload — prefix bytes, qIndex, per-component length
 bytes, bounded interleaved exp-Golomb data, byte alignment — is assembled on
-the TPU in three fully-vectorised stages, so the only device->host transfer
+the device in three fully-vectorised stages, so the only device->host transfer
 of an encode step is the final compressed byte buffer:
 
 1. per-coefficient signed exp-Golomb code words + bit lengths (the bit
@@ -215,17 +215,15 @@ def pack_hq_core(qy, qu, qv, q_idx, slice_sizes, *, prefix: int,
     local = _accumulate(local, hw, hp, jnp.zeros_like(hp), w32)
 
     # global assembly, in WORD space ---------------------------------------
-    # The original per-byte form (slice-of-byte map over cap_bytes lanes +
-    # one gathered word per OUTPUT BYTE) measured 31 ms/frame on v5e at
-    # 1080p CBR — 97% of the whole pack (scripts/profile_pack.py). Instead:
-    # pre-shift each slice's local row to its global word alignment with
+    # Pre-shift each slice's local row to its global word alignment with
     # plain vector shifts, then scatter-add the rows at their global word
     # positions. Different slices' contributions to a shared boundary word
     # are bit-disjoint, so integer add realises OR (same invariant the
-    # local accumulate relies on). Whole pack measured 31.8 -> 2.9 ms/frame
-    # (with the uint32 fix above); a two-gather formulation (word->slice
-    # map + OR of the <=2 contributors) measured ~25% slower than the
-    # scatter and needs the map scan.
+    # local accumulate relies on). On the TPU this codec was first built
+    # for, this replaced a per-byte form (a slice-of-byte map over
+    # cap_bytes lanes + one gathered word per OUTPUT BYTE) that took nearly
+    # all of the pack's time, and beat a two-gather formulation (word->slice
+    # map + OR of the <=2 contributors), which also needs the map scan.
     cap4 = (cap_bytes + 3) // 4
     basew = starts >> 2                              # first global word
     sh = ((starts & 3) * 8).astype(jnp.uint32)       # bit misalignment

@@ -8,7 +8,7 @@ the reference exactly (/root/reference/src/Library/src/VLC.cpp:54-94 codes,
 :182-185 bounded reads return 1-bits past the region;
 /root/reference/src/Library/src/Slices.cpp:384-467 slice layout).
 
-Design (TPU-first; one tight gather, one short multi-code lane scan):
+Design (one tight gather, one short multi-code lane scan):
 
 * The payload is assembled into big-endian uint32 words on device; each
   slice component gathers a window block of ``W`` words covering ONLY its
@@ -119,8 +119,9 @@ def _decode_scan_raw(block, pos0, bound, lane_lim, length: int):
     same rejected state), so a step's accepted values are DENSE in slot
     order starting at lane nd0 - the scan carries only (pos, lanes-done)
     and lane placement happens post-scan in one parallel pass (_place).
-    An in-scan dense [N, out_w] accumulator measured ~8x slower: its K
-    one-hot updates rewrite the whole accumulator every step (HBM-bound).
+    An in-scan dense [N, out_w] accumulator was several times slower on the
+    TPU this codec was first built for: its K one-hot updates rewrite the
+    whole accumulator every step (memory-bound).
     """
     n_words = block.shape[1]
     u64 = lambda a: a.astype(jnp.uint64)
@@ -192,23 +193,25 @@ def _place(vals, nd0, rows, out_w: int):
     """Lane placement of a row range of the scan's dense step blocks: step
     s of row n holds values for lanes [nd0[s,n], nd0[s,n]+K) (zeros in the
     unaccepted tail slots), so out[n, l] = sum over s of
-    vals[s, n, l - nd0[s, n]] - evaluated as _K masked shifted reductions,
-    one parallel pass, no sequential state. Lanes no step wrote (the
-    1-fill tail past a region's last code) stay 0, their decoded value."""
+    vals[s, n, l - nd0[s, n]] - one scatter-add, no sequential state. Two
+    steps of a row overlap only where the earlier one holds its zero tail,
+    so the integer adds place each value exactly once. Lanes no step wrote
+    (the 1-fill tail past a region's last code) stay 0, their decoded
+    value.
+
+    The scatter replaced a fully unrolled sum of S*K masked terms, whose
+    compile time grew with S*K: with it, the first device decode of each
+    small golden geometry took 24-68 s on an H100, compile included, and
+    the depth-4 golden case's decode took 99 s on XLA:CPU (7 s with the
+    scatter)."""
     v = vals[:, rows]
     b = nd0[:, rows]
-    lanes = jnp.arange(out_w, dtype=jnp.int32)
-    out = jnp.zeros((v.shape[1], out_w), jnp.int32)
-    # fully unrolled (S*K static terms): one fused elementwise pass over
-    # the (n, out_w) output - an axis-0 jnp.sum form measured ~6x slower
-    # (each of the _K reduce terms materialised its (S, n, out_w) operand)
-    for s in range(v.shape[0]):
-        rel = lanes[None, :] - b[s][:, None]            # (n, out_w)
-        acc = v[s, :, 0, None] * (rel == 0).astype(jnp.int32)
-        for j in range(1, _K):
-            acc = acc + v[s, :, j, None] * (rel == j).astype(jnp.int32)
-        out = out + acc
-    return out
+    n = v.shape[1]
+    lane = b[:, :, None] + jnp.arange(_K, dtype=jnp.int32)      # (S, n, K)
+    row = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32)[None, :, None],
+                           lane.shape)
+    return jnp.zeros((n, out_w), jnp.int32).at[row, lane].add(
+        v, mode="drop")
 
 
 def _decode_scan(block, pos0, bound, lane_lim, out_w: int, length: int):

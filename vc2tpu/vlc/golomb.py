@@ -1,4 +1,4 @@
-"""Interleaved exp-Golomb codes, vectorised for the TPU.
+"""Interleaved exp-Golomb codes, vectorised for the device.
 
 The wire format (reference /root/reference/src/Library/src/VLC.cpp:21-94):
 unsigned value v is coded as u = v+1; for each bit of u below its top bit,
@@ -9,7 +9,7 @@ Construction trick: the data bits of ``m = u - 2^(k-1)`` spread into even
 bit positions (a Morton spread) give exactly the interleaved pattern
 Σ d_j·4^j; the full code is ``(spread(m) << 1 | 1)`` plus an optional sign
 bit. Codes are returned as (lo32, hi32, nbits) uint32 triplets so the device
-computation stays 32-bit (TPU-friendly, no x64 mode needed).
+computation stays 32-bit (no x64 mode needed).
 """
 
 from __future__ import annotations

@@ -172,9 +172,9 @@ def _get_sub(x, s: int):
 
 def _set_sub(x, v, s: int):
     """x with the (::s, ::s) sub-lattice replaced by ``v``. Recursive
-    stride-2 split + stack-interleave: a strided scatter
-    (`.at[::s, ::s].set`) costs ~50x more than the lifting arithmetic on
-    TPU, while this pattern fuses."""
+    stride-2 split + stack-interleave: on the TPU this codec was first built
+    for, a strided scatter (`.at[::s, ::s].set`) cost far more than the
+    lifting arithmetic, while this pattern fuses."""
     if s == 1:
         return v
     er = x[..., 0::2, :]
